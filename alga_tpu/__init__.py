@@ -1,12 +1,12 @@
-"""alga_tpu — a TPU-native overlap-graph (OLC) de-novo genome assembler.
+"""alga_tpu — an accelerator overlap-graph (OLC) de-novo genome assembler.
 
-A ground-up re-design of the capabilities of swacisko/ALGA (reference:
-/root/reference, C++17/pthreads) for TPU hardware: JAX/XLA/Pallas for the
-compute path (rolling-hash overlap sweeps, packed-bit alignment kernels,
-banded DP), `jax.sharding` meshes + collectives for scale-out, and a thin
-host layer for ragged bookkeeping (IO, graph surgery, contig walking).
+A ground-up re-design of the capabilities of swacisko/ALGA (C++17/pthreads)
+for an accelerator: JAX/XLA for the compute path (rolling-hash overlap
+sweeps, packed-bit alignment kernels, banded DP), `jax.sharding` meshes +
+collectives for scale-out, a native C++ host engine and a thin host layer
+for ragged bookkeeping (IO, graph surgery, contig walking).
 
-Layer map (mirrors reference SURVEY.md §1, re-architected TPU-first):
+Layer map (mirrors reference SURVEY.md §1, re-architected for the device):
 
   config.py         — immutable config + ALGA's auto-tuning contract
                       (ref: src/Params.cpp, src/main.cpp:93-115)
@@ -27,24 +27,14 @@ Layer map (mirrors reference SURVEY.md §1, re-architected TPU-first):
   pipeline.py       — end-to-end assembly orchestration (ref: src/main.cpp)
 """
 
-import os as _os
-
 import jax
 
 # Genomic hash arithmetic needs 64-bit integers (rolling polynomial hashes
 # modulo ~2^31 primes accumulate in int64).  Enable before first trace.
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: kernel executables are reused across
-# processes (first-compile of the overlap-sweep kernels is expensive on
-# remote TPU backends).
-_cache_dir = _os.environ.get(
-    "ALGA_TPU_CACHE", _os.path.expanduser("~/.cache/alga_tpu_jax"))
-try:
-    _os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # pragma: no cover - cache is best-effort
-    pass
+from alga_tpu.jax_cache import enable_compile_cache as _enable_compile_cache
+
+_enable_compile_cache()
 
 __version__ = "0.1.0"

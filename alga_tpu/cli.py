@@ -18,7 +18,7 @@ from alga_tpu.pipeline import assemble_to_file
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="alga-tpu",
-        description="TPU-native overlap-graph de-novo genome assembler",
+        description="overlap-graph de-novo genome assembler on an accelerator",
     )
     p.add_argument("--file1", required=True, help="reads (FASTA/FASTQ), first mates")
     p.add_argument("--file2", default="", help="second mates (optional)")

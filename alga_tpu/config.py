@@ -95,9 +95,6 @@ class AssemblyConfig:
 
     # --- sweep mechanics ---
     read_length_cap: int = 500     # overlap sweep cap (ref: GCPS.cpp:92)
-    sweep_chunk_rounds: int = 16   # overlap lengths processed per device dispatch
-                                   # (TPU-specific: amortizes dispatch/join cost;
-                                   # no reference counterpart)
 
     # --- contig post-processing ---
     trim_threshold: int = 25       # contig end-trim overlap graph threshold

@@ -390,9 +390,9 @@ _hints: dict = {}
 
 def _hints_file():
     import os
-    d = os.environ.get("ALGA_TPU_CACHE",
-                       os.path.expanduser("~/.cache/alga_tpu_jax"))
-    return os.path.join(d, "gcps_scale_hints.json")
+
+    from alga_tpu.jax_cache import cache_dir
+    return os.path.join(cache_dir(), "gcps_scale_hints.json")
 
 
 def _load_hints():

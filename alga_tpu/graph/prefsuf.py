@@ -1,6 +1,6 @@
 """Exact suffix–prefix overlap graph construction (GCPS equivalent).
 
-TPU-first redesign of the reference's default graph creator
+Device-first redesign of the reference's default graph creator
 (ref: src/GraphCreators/GraphCreatorPrefSuf.cpp).  The reference runs ~450
 sequential rounds (one per overlap length ℓ), each round probing per-read
 rolling hashes into shared buckets and mutating the graph in place under
@@ -274,11 +274,9 @@ def build_gcps_graph(packed, lengths, n: int, ell_min: int, cap: int,
         force = _os.environ.get("ALGA_GCPS_DEVICE", "")
         on_accel = _jax.default_backend() != "cpu"
         big_enough = len(lengths) * n_windows >= 1 << 18
-        # the fused single-dispatch path wins on warm latency for small
-        # batches; above ~0.5M reads its one giant dispatch/fetch proved
-        # fragile over slow links (BASELINE.md r4), so larger batches take
-        # the staged wide path, which matched/beat the host engine at the
-        # 876k- and 7.2M-read scale runs
+        # the fused single-dispatch path serves small batches; above ~0.5M
+        # reads larger batches take the staged wide path (thresholds not
+        # yet re-derived from GPU measurements)
         fits_small = (n_windows <= 4096 and n < (1 << 19)
                       and max_len < 1024)
         # hard preconditions of the fused path's packed sort keys — a

@@ -17,7 +17,7 @@ uint64 pair instead of the reference's __int128 and group by the exact pair
 (the reference groups by hash mod 10^18+3, which can only merge groups —
 the merged pairs are then rejected by the alignment check).
 
-Execution model (TPU-first redesign of the reference's clone-per-thread
+Execution model (device-first redesign of the reference's clone-per-thread
 bucket loop, ref GraphCreatorKmerBased.cpp:108-136): per rotation,
 
   1. extract all LI minimizer records vectorized (`li_kmers`),

@@ -1,4 +1,4 @@
-"""Multi-host sharded ingest (SURVEY §2.9 P7 — the TPU equivalent of the
+"""Multi-host sharded ingest (SURVEY §2.9 P7 — the accelerator equivalent of the
 reference's parallel strided file reading, ref src/IO/InputReader.cpp:272-391
 where T threads each open the file and read every T-th record).
 

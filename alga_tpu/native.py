@@ -1,7 +1,8 @@
 """ctypes binding for the native host graph engine (native/alga_host.cpp).
 
-Loads native/libalga_host.so (built via `make -C native`; auto-built on
-first use when a compiler is available).  Falls back to the pure-Python
+Loads native/libalga_host.so, built from the committed source by
+`make -C native` on first use in each process (make rebuilds only when
+alga_host.cpp is newer).  Falls back to the pure-Python
 twin implementations when unavailable — the Python versions are the
 differential-test oracles and stay authoritative for semantics.
 """
@@ -18,22 +19,33 @@ _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 _SO = os.path.join(_NATIVE_DIR, "libalga_host.so")
 
 _lib = None
+_tried = False
 
 
-def _try_build() -> bool:
+def _build() -> bool:
+    """`make -C native` under a file lock: make's timestamp check rebuilds
+    the library from alga_host.cpp whenever the source is newer, and the
+    lock keeps concurrent first-use processes from writing it at once."""
+    import fcntl
+    import sys
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                           capture_output=True, timeout=300)
         return os.path.exists(_SO)
-    except Exception:
+    except Exception as e:
+        print(f"[alga_tpu] native build failed ({e!r}); using the Python "
+              "twins", file=sys.stderr)
         return False
 
 
 def get_lib():
-    global _lib
-    if _lib is not None:
+    global _lib, _tried
+    if _lib is not None or _tried:
         return _lib
-    if not os.path.exists(_SO) and not _try_build():
+    _tried = True
+    if not _build():
         return None
     lib = ctypes.CDLL(_SO)
 

@@ -169,18 +169,8 @@ def banded_lcs_batch(codes, lengths, r1, r2, offsets, max_len: int, E: int = 2):
 
 
 def banded_lcs(codes, lengths, r1, r2, offsets, max_len: int, E: int = 2):
-    """Production entry: the Pallas Mosaic kernel on TPU backends (measured
-    ~87x the XLA lax.scan kernel on v5e — 4.8 vs 0.055 Gcells/s), the XLA
-    batch kernel elsewhere.  ALGA_TPU_ENABLE_PALLAS=1/0 force-overrides."""
-    import os
-
-    import jax
-    flag = os.environ.get("ALGA_TPU_ENABLE_PALLAS")
-    use_pallas = (jax.default_backend() not in ("cpu",)
-                  if flag is None else flag == "1")
-    if use_pallas:
-        from alga_tpu.ops.pallas.banded_dp import banded_lcs_pallas
-        return banded_lcs_pallas(codes, lengths, r1, r2, offsets, max_len, E)
+    """Production entry of the banded-LCS fallback: the XLA batch kernel
+    on every backend."""
     return banded_lcs_batch(codes, lengths, r1, r2, offsets, max_len, E)
 
 
@@ -260,7 +250,7 @@ def _np_ach_chunk(codes, lengths, r1, r2, offsets, cfg):
 def ach_batch_auto(packed, codes, lengths, r1, r2, offsets, cfg,
                    min_device_batch: int = 200_000) -> np.ndarray:
     """bool[M]: ACH over pairs with backend dispatch — numpy twin for small
-    batches, the XLA/Pallas device kernels (padded to a power-of-two batch
+    batches, the XLA device kernels (padded to a power-of-two batch
     so compiled executables are reused) for large ones."""
     from alga_tpu.utils.timers import bump
     m = len(r1)
@@ -287,6 +277,7 @@ def ach_batch_auto(packed, codes, lengths, r1, r2, offsets, cfg,
         return np_ach_batch(codes, lengths, r1, r2, offsets, cfg)
 
     from alga_tpu.ops.bitops import _pad_pow2
+    bump("ach_device_batches")
     cap = 1 << (m - 1).bit_length()
     r1p = _pad_pow2(np.asarray(r1, dtype=np.int32), cap)
     r2p = _pad_pow2(np.asarray(r2, dtype=np.int32), cap)

@@ -1,6 +1,6 @@
 """Rolling polynomial hash kernels over packed 2-bit reads.
 
-TPU-first redesign of the reference's per-overlap-length iterative-deepening
+Device-first redesign of the reference's per-overlap-length iterative-deepening
 hash sweep (ref: src/GraphCreators/GraphCreatorPrefSuf.cpp:73-126,213-236):
 instead of ~450 sequential rounds maintaining live prefix/suffix hashes under
 striped locks, we compute the hash of EVERY length-k window of every read in
@@ -8,7 +8,7 @@ one `lax.scan` (one dispatch), and candidate generation becomes a single
 sort-join of window keys against prefix keys (see graph/prefsuf.py).
 
 Hashing: two independent polynomial hashes modulo 2^32 with odd multipliers
-(natural uint32 wrap-around — no int64 emulation on TPU, unlike the
+(natural uint32 wrap-around — 32-bit integer lanes on the device, unlike the
 reference's 10^18+3 / 10^9+7 moduli, ref Params.cpp:721, GCPS.h:42):
     h(window) = sum_j code[p+j] * A^(k-1-j)   (mod 2^32)
 Single-base differences can never collide (odd multiplier => A^m odd), and

@@ -10,7 +10,7 @@ per-device memory O(N).  This module is the real scale-out design
     g // per).  The packed store is NEVER gathered or replicated.
   * Window (suffix) and prefix key records are routed to their KEY OWNER
     shard (owner = k1 % d) with `all_to_all`; the owner sort-joins them
-    locally — the TPU re-expression of the reference's hash buckets
+    locally — the device re-expression of the reference's hash buckets
     (ref GraphCreatorPrefSuf.cpp:41-48, probed under striped locks there).
   * Candidate verification fetches the two packed rows of each candidate
     from their home shards with a request/response `all_to_all` pair
@@ -567,6 +567,11 @@ def gcps_graph_sharded(mesh: Mesh, packed_np, lengths_np, n: int,
     import os as _os
     _shrink = int(_os.environ.get("ALGA_SHARDED_TINY_CAPS", "0") or 0)
     from alga_tpu.utils.timers import bump as _bump
+    # placement evidence: the store's rows vs the rows the fullest local
+    # device holds (== npad / d when the store is block-sharded)
+    _bump("sharded_store_rows", npad)
+    _bump("sharded_store_rows_max_device",
+          max(sh.data.shape[0] for sh in packed_d.addressable_shards))
     s_suf = _round_cap(per * num_windows // d * 13 // 10 + 64)
     s_pre = _round_cap(per // d * 13 // 10 + 64)
     if _shrink:

@@ -2,7 +2,7 @@
 //
 // The reference assembler's host runtime is C++ (graph surgery under striped
 // locks, pointer-chasing walks); this library is its native-performance
-// counterpart in the TPU framework: the device (JAX/XLA/Pallas) finds and
+// counterpart in the JAX framework: the device (JAX/XLA) finds and
 // verifies overlap candidates, and this engine runs the sequential
 // graph-simplification / contraction / contig-walk passes whose semantics
 // were locked down (byte-identical output) against the reference via the

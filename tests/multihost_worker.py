@@ -2,7 +2,7 @@
 tests/test_multihost.py).  Each process owns 4 virtual CPU devices of an
 8-device global mesh; the de-replicated sharded GCPS runs over the global
 mesh, with all_to_all traffic crossing the process boundary — the
-fake-backend analogue of a multi-host TPU pod slice (SURVEY.md §4-d).
+fake-backend analogue of a multi-host GPU cluster (SURVEY.md §4-d).
 
 Usage: python tests/multihost_worker.py <process_id> <num_processes> <port>
 """
@@ -19,14 +19,11 @@ def main() -> int:
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/alga_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.distributed.initialize(coordinator_address=f"localhost:{port}",
                                num_processes=nproc, process_id=pid)
 
     import numpy as np
-    from alga_tpu.core import packing
+    from alga_tpu.core import packing  # also sets the compile cache
     from alga_tpu.graph import prefsuf
     from alga_tpu.parallel import mesh as mesh_mod
     from alga_tpu.parallel.sharded_gcps import gcps_graph_sharded

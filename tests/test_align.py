@@ -193,3 +193,84 @@ def test_acler_batch_native_min_offset(rng):
     assert want0.sum() > want.sum()
     got0 = native_mod.acler_batch_native(packed, lengths, r1, r2, off, cfg0)
     np.testing.assert_array_equal(got0, want0)
+
+
+def test_banded_lcs_entry_is_xla_kernel(rng):
+    """The production entry runs the XLA batch kernel on every backend; no
+    hand-written DP kernel package remains."""
+    import importlib.util
+
+    codes, lengths, _ = _batch(rng, 20, 60)
+    r1, r2, offs = _overlapping_pairs(rng, codes, lengths, 30, err=0.05)
+    a = np.asarray(align.banded_lcs(codes, lengths, r1, r2, offs, 60, 2))
+    b = np.asarray(align.banded_lcs_batch(codes, lengths, r1, r2, offs, 60, 2))
+    np.testing.assert_array_equal(a, b)
+    assert importlib.util.find_spec("alga_tpu.ops.pallas") is None
+
+
+@pytest.mark.parametrize("E", [1, 3, 7, 8])
+def test_banded_lcs_band_widths_ragged(rng, E):
+    """XLA kernel == literal ACLCS transcription for several band
+    half-widths over ragged read lengths."""
+    seqs = ["".join("ACGT"[i] for i in rng.integers(0, 4, rng.integers(25, 61)))
+            for _ in range(14)]
+    # plant noisy overlaps so the LCS values are not all near-random
+    for i in range(0, 14, 2):
+        o = int(rng.integers(0, len(seqs[i]) // 2))
+        tail = list(seqs[i][o:])
+        for _e in range(2):
+            tail[int(rng.integers(0, len(tail)))] = "ACGT"[int(rng.integers(0, 4))]
+        seqs[i + 1] = "".join(tail) + seqs[i + 1][len(tail):]
+    codes, lengths = packing.strings_to_codes(seqs)
+    m = 36
+    r1 = rng.integers(0, 14, m)
+    r2 = rng.integers(0, 14, m)
+    r1[: m // 2] = np.arange(0, 14, 2).repeat(3)[: m // 2]
+    r2[: m // 2] = r1[: m // 2] + 1
+    offs = np.array([int(rng.integers(0, max(1, lengths[a] - 10))) for a in r1])
+    got = np.asarray(align.banded_lcs_batch(
+        codes, lengths.astype(np.int64), r1, r2, offs, codes.shape[1], E))
+    want = np.array([
+        align.np_banded_lcs(codes, lengths, a, b, int(o), E)
+        for a, b, o in zip(r1, r2, offs)])
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(want)) > 3
+
+
+def test_ach_batch_auto_device_lcs_branch(rng):
+    """The device ACH branch with the LCS fallback on equals the numpy
+    batch twin and the scalar ACH oracle."""
+    import dataclasses
+
+    from alga_tpu.config import AssemblyConfig, autotune
+    from alga_tpu.utils.timers import counters_report, reset_counters
+
+    L = 60
+    genome = "".join("ACGT"[i] for i in rng.integers(0, 4, size=700))
+    seqs = []
+    for p in range(0, 700 - L, 6):
+        s = list(genome[p : p + L])
+        for _e in range(int(rng.integers(0, 3))):
+            s[int(rng.integers(0, L))] = "ACGT"[int(rng.integers(0, 4))]
+        seqs.append("".join(s))
+    packed, lengths = packing.pack_strings(seqs)
+    codes = packing.packed_to_codes(packed, L)
+    cfg = autotune(AssemblyConfig(error_rate=0.02), float(L))
+    cfg = dataclasses.replace(cfg, use_acler_instead_of_aclcs=False)
+    n = len(seqs)
+    M = 300
+    r1 = rng.integers(0, n - 6, M).astype(np.int64)
+    d = rng.integers(1, 6, M)
+    r2 = r1 + d
+    off = (d * 6 + rng.integers(-2, 3, M)).astype(np.int64)
+    lengths64 = lengths.astype(np.int64)
+    reset_counters()
+    got = align.ach_batch_auto(packed, codes, lengths64, r1, r2, off, cfg,
+                               min_device_batch=1)
+    assert counters_report().get("ach_lcs_alignments", 0) > 0
+    want = align.np_ach_batch(codes, lengths64, r1, r2, off, cfg)
+    np.testing.assert_array_equal(got, want)
+    oracle = np.array([align.np_ach_can_align(codes, lengths64, a, b, int(o), cfg)
+                       for a, b, o in zip(r1, r2, off)])
+    np.testing.assert_array_equal(got, oracle)
+    assert want.any() and not want.all()

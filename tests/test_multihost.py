@@ -2,7 +2,7 @@
 processes x 4 virtual CPU devices = one 8-device global mesh, with the
 all_to_all key routing and remote row fetches crossing the process
 boundary.  This is the multi-host path the VERDICT required to exist
-before hardware does (item 3); on real TPU the same code rides ICI/DCN."""
+before hardware does; on real GPUs the same code rides NVLink/NCCL."""
 
 import os
 import socket
